@@ -1,9 +1,9 @@
-"""aligntools_tpu — TPU-native pairwise sequence alignment engine.
+"""aligntools_tpu — batched pairwise sequence alignment engine for the GPU.
 
-A brand-new JAX/XLA/Pallas implementation of the five DP alignment modes of
+A JAX/XLA implementation of the five DP alignment modes of
 r3fang/alignTools.C (global, local, fit+jump, overlap, edit distance), with
-exact score and alignment-string parity against the reference C binary, and
-anti-diagonal wavefront kernels batched/sharded for TPU throughput.
+exact score and alignment-string parity against the reference C binary,
+batched and sharded across GPUs.
 """
 
 from aligntools_tpu.params import AlignParams, MODES

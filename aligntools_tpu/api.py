@@ -5,7 +5,7 @@
 Engine selection:
 
   * ``"scan"``  — JAX row-scan engine (engine/scan.py): jitted, runs on
-    TPU or CPU.
+    the GPU or the CPU.
   * ``"spec"``  — NumPy oracle (spec/engine.py): host-only reference
     semantics, also used for differential testing.
   * ``"auto"``  — scan on an accelerator backend; spec on CPU. A single
@@ -50,7 +50,7 @@ def align_pair(
         # On the CPU backend a lone pair is compile-dominated — spec wins
         # cold by 7-60x and ties warm (module docstring). Checked FIRST,
         # before anything that imports jax: the cold single-pair CLI stays
-        # numpy-only (~0.4 s vs ~2.6 s with the jax import; VERDICT r2 #7).
+        # numpy-only (~0.4 s vs ~2.6 s with the jax import).
         if _backend_name() == "cpu":
             engine = "spec"
         else:

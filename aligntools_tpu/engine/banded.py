@@ -48,8 +48,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from aligntools_tpu.backend import on_tpu as _on_tpu
-
 from aligntools_tpu.params import AlignParams
 
 NEG = -jnp.inf
@@ -441,107 +439,14 @@ def banded_score(
     return float(score), float(edge)
 
 
-# HBM budget for the materialized (B, m_pad, V_pad) window slab (the
-# kernel streams it; larger batches are chunked to stay under budget).
-PALLAS_SLAB_BYTES = 256 << 20
-
-
-def banded_tile_b(B: int, m_pad: int, V_pad: int) -> int:
-    """Batch-tile width for the banded Pallas kernel.
-
-    Like the flat kernels, it is per-instruction-overhead-bound at
-    narrow tiles — measured on v5e at 64x4096 W=128 (band-cell GCUPS):
-    2.5 / 4.8 / 8.4 / 11.8 at tile_b 8/16/32/64 (benchmarks/
-    probe_banded.py) — so widen up to the batch, a VMEM element budget
-    (resident q tile (tile_b, m_pad) + ~12 live (tile_b, V_pad) rows),
-    and a 512 cap (diminishing returns past the measured range)."""
-    cap = max(8, (12 << 20) // max(m_pad + 12 * V_pad, 1))
-    t = 8
-    while t < 512 and t * 2 <= min(B, cap):
-        t *= 2
-    return t
-
-
-def _banded_scores_pallas(mode, qs, te, ns, ms, band, params, emit=False):
-    """Run the padded batch on the Pallas banded kernel (bit-identical
-    to the vmapped XLA fill — tests/test_banded.py). Score-only returns
-    (best, edge); with ``emit`` also (a, b, ptrs) — the per-mode
-    traceback-start scalars and the (B, m_pad, V_pad) window-coordinate
-    byte pointer slabs (the host walk reads lanes k < V only)."""
-    from aligntools_tpu.ops.pallas_banded import (
-        SROW,
-        banded_pallas_full,
-        banded_pallas_scores,
-        build_t_win,
-    )
-
-    interpret = not _on_tpu()
-    B, m0 = qs.shape
-    V = 2 * band + 1
-    V_pad = -(-V // 128) * 128
-    m_pad = -(-max(m0, 1) // SROW) * SROW
-    tile_b = banded_tile_b(B, m_pad, V_pad)
-    B_pad = -(-B // tile_b) * tile_b
-    qs_p = np.full((B_pad, m_pad), -1, np.int32)
-    qs_p[:B, :m0] = qs
-    te_p = np.full((B_pad, te.shape[1]), -2, np.int32)
-    te_p[:B] = te
-    ns_p = np.zeros((B_pad, 1), np.int32)
-    ns_p[:B, 0] = ns
-    ms_p = np.zeros((B_pad, 1), np.int32)
-    ms_p[:B, 0] = ms
-    pv = np.array(
-        [[params.match, params.mismatch, params.gap_open,
-          params.gap_extend, params.jump, 0, 0, 0]], np.float32
-    )
-    cell_bytes = m_pad * V_pad * (5 if emit else 4)
-    chunk = max(tile_b, PALLAS_SLAB_BYTES // max(cell_bytes, 1))
-    chunk = max(tile_b, chunk // tile_b * tile_b)
-    best = np.empty(B_pad, np.float64)
-    edge = np.empty(B_pad, np.float64)
-    a = np.empty(B_pad, np.float64)
-    bb = np.empty(B_pad, np.float64)
-    ptrs = np.empty((B, m_pad, V_pad), np.uint8) if emit else None
-    for lo in range(0, B_pad, chunk):
-        hi = min(lo + chunk, B_pad)
-        t_win = build_t_win(jnp.asarray(te_p[lo:hi]), m_pad, V_pad)
-        args = (
-            mode, band, m_pad, interpret, tile_b,
-            jnp.asarray(qs_p[lo:hi]), t_win,
-            jnp.asarray(ns_p[lo:hi]), jnp.asarray(ms_p[lo:hi]),
-            jnp.asarray(pv),
-        )
-        if emit:
-            b_, eg, a_, bb_, pt = banded_pallas_full(*args)
-            a[lo:hi] = np.asarray(a_, np.float64)
-            bb[lo:hi] = np.asarray(bb_, np.float64)
-            ptrs[lo:min(hi, B)] = np.asarray(pt)[: max(0, min(hi, B) - lo)]
-        else:
-            b_, eg = banded_pallas_scores(*args)
-        best[lo:hi] = np.asarray(b_, np.float64)
-        edge[lo:hi] = np.asarray(eg, np.float64)
-    if emit:
-        return best[:B], edge[:B], a[:B], bb[:B], ptrs
-    return best[:B], edge[:B]
-
-
 def banded_batch_scores(
     mode: str,
     pairs,
     band: int,
     params: AlignParams = AlignParams(),
-    engine: str = "auto",
 ):
-    """Batched banded scores; all pairs share one band and padded shapes.
-    Returns (scores, edge_best) float arrays.
-
-    ``engine``: "xla" (vmapped lax.scan fill), "pallas" (VMEM-resident
-    window kernel, bit-identical), or "auto". Auto routes like the flat
-    engines: the XLA fill's fused-carry regime holds only at large batch
-    (measured v5e, band cells: 64x4096 W=128 XLA 2.4 vs Pallas 11.8
-    GCUPS; 256x1024 W=64 XLA 14.0 vs 10.7; 2048x512 W=64 XLA 36.1 vs
-    12.0 — benchmarks/probe_banded.py), so Pallas engages on TPU iff
-    the batch is below the autotuned ``bmin`` threshold."""
+    """Batched banded scores (one vmapped XLA fill); all pairs share one
+    band and padded shapes. Returns (scores, edge_best) float arrays."""
     B = len(pairs)
     m_pad = max(len(q) for q, _ in pairs)
     n_max = max(len(t) for _, t in pairs)
@@ -555,8 +460,6 @@ def banded_batch_scores(
                  params.gap_extend]
     if mode not in BANDED_MODES:
         raise ValueError(f"banded engine covers {BANDED_MODES}")
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown banded engine {engine!r}")
     for k, (q, t) in enumerate(pairs):
         if mode in ("global", "edit") and abs(len(t) - len(q)) > band:
             raise ValueError("band cannot contain the end cell")
@@ -567,15 +470,6 @@ def banded_batch_scores(
         ns[k] = len(t)
         ms[k] = len(q)
         ps[k, 5] = len(q)
-    if engine == "auto" and _on_tpu():
-        from aligntools_tpu.engine.autotune import table
-
-        t = table()
-        if B < t.get("banded_bmin", t["bmin"]):
-            engine = "pallas"
-    if engine == "pallas":
-        return _banded_scores_pallas(mode, qs, te, ns, ms, band, params)
-
     out = jax.jit(
         jax.vmap(
             lambda q, t, n, p: banded_fill(mode, q, t, n, band, p)[:2]
@@ -719,19 +613,15 @@ def banded_align_batch(
     pairs,
     band: int,
     params: AlignParams = AlignParams(),
-    engine: str = "auto",
 ):
-    """Batched banded alignments WITH rows: one pointer-emitting fill
-    (vmapped XLA or the Pallas window kernel — same crossover routing as
-    banded_batch_scores), then per-pair host walks over the
+    """Batched banded alignments WITH rows: one pointer-emitting vmapped
+    XLA fill, then per-pair host walks over the
     (B, m_pad, V) window slabs. Returns ([AlignResult], edge_best
     array). Same in-band semantics as :func:`banded_align`."""
     from aligntools_tpu.spec.engine import AlignResult
 
     if mode not in ("global", "local", "fit", "overlap"):
         raise ValueError("banded traceback covers global/local/fit/overlap")
-    if engine not in ("auto", "xla", "pallas"):
-        raise ValueError(f"unknown banded engine {engine!r}")
     B = len(pairs)
     m_pad = max(len(q) for q, _ in pairs)
     n_max = max(len(t) for _, t in pairs)
@@ -753,25 +643,13 @@ def banded_align_batch(
         ns[k] = len(t)
         ms[k] = len(q)
         ps[k, 5] = len(q)
-    if engine == "auto" and _on_tpu():
-        from aligntools_tpu.engine.autotune import table
-
-        t_ = table()
-        if B < t_.get("banded_bmin", t_["bmin"]):
-            engine = "pallas"
-    if engine == "pallas":
-        score, edge, a, b, ptrs = _banded_scores_pallas(
-            mode, qs, te, ns, ms, band, params, emit=True
-        )
-    else:
-        score, edge, a, b, ptrs = jax.jit(
-            jax.vmap(
-                lambda q, t, n, p: banded_fill(mode, q, t, n, band, p, True)
-            ),
-        )(jnp.asarray(qs), jnp.asarray(te), jnp.asarray(ns),
-          jnp.asarray(ps))
-        score, a, b = np.asarray(score), np.asarray(a), np.asarray(b)
-        ptrs = np.asarray(ptrs)
+    score, edge, a, b, ptrs = jax.jit(
+        jax.vmap(
+            lambda q, t, n, p: banded_fill(mode, q, t, n, band, p, True)
+        ),
+    )(jnp.asarray(qs), jnp.asarray(te), jnp.asarray(ns), jnp.asarray(ps))
+    score, a, b = np.asarray(score), np.asarray(a), np.asarray(b)
+    ptrs = np.asarray(ptrs)
     out = []
     for k, (q, t) in enumerate(pairs):
         m, sk = len(q), float(score[k])

@@ -1,15 +1,9 @@
-"""Column-chunked XLA score engine: the fused-regime row scan at ANY n.
+"""Column-chunked XLA engine: the batched row scan in column chunks.
 
 The plain XLA row-scan engine (engine/scan.py) carries (B, n_pad) state
-rows through ``lax.scan``; XLA keeps those carries fused in registers /
-VMEM only up to a width ceiling (the calibrated ``nmax``, ~4096 on v5e).
-Past it the carries spill to HBM every row step and throughput collapses
-~3-40x (measured 20.8 GCUPS at 256x8192 vs 67 at 256x4096; 3.4 on the
-fit flagship 64x(512x32768)).
-
-This engine restores the fused regime at any target length by filling
-the matrix in COLUMN CHUNKS of ``n_chunk`` (default 1024) columns: each
-chunk is a full ``lax.scan`` over rows with narrow (B, n_chunk) carries,
+rows through ``lax.scan``, one full-width row per scan step. This engine
+fills the matrix in COLUMN CHUNKS of ``n_chunk`` (default_chunk())
+columns instead: each chunk is a full ``lax.scan`` over rows with narrow (B, n_chunk) carries,
 and the only state crossing chunks is each row's right-edge values —
 (B, m_pad) arrays of the states with a horizontal/diagonal dependency:
 
@@ -26,12 +20,9 @@ e*j' and the edge seed enters as V[0] = U(i, c0). Score latches (the
 (m, n) finals, local's running argmax, fit/overlap's row-m scans) carry
 across chunks as (B,)-sized running values.
 
-Hypothesis validated on v5e before building (round 3): a prototype of
-the local fill measured 67.8 GCUPS at 256x8192 (vs 20.8 flat XLA, 40
-Pallas), 64.0 at 128x8192, 62.6 at 256x16384, chunk width insensitive
-across 1024-4096 — and collapsed to 1.2 at batch 64, so the calibrated
-``bmin`` batch gate still decides Pallas vs XLA; this engine only moves
-the ``nmax`` ceiling out.
+On the GPU it wins at large batches of short rows (engine/select.py
+routes by the measured batch crossover); the vmap engine wins at small
+batches and long rows (PERF.md, "Bring-up findings").
 
 Exact f32 semantics, borders, masks, and tie behavior mirror
 engine/scan.py's machines, which are parity-tested against the reference
@@ -57,35 +48,27 @@ import jax.numpy as jnp
 
 NEG = -jnp.inf
 
-DEFAULT_CHUNK = 1024
+# widest of 512/1024/2048 won at both probed shapes on an H100 80GB HBM3
+# (700 W): 42.0 vs 38.1 vs 28.2 GCUPS at 640 x 320 x 3072, 40.3 vs 26.1
+# vs 16.9 at 256 x 2048^2 (PERF.md, "Bring-up findings")
+DEFAULT_CHUNK = 2048
 
 
 def default_chunk() -> int:
-    """Production chunk width: env ALIGNTOOLS_CHUNK_WIDTH, then the
-    per-device calibrate table (``chunked_chunk`` — measured by
-    ``aligntools calibrate`` stage 8), then DEFAULT_CHUNK.
-
-    v5e grid measurement (benchmarks/probe_chunkgrid.py, chained
-    on-device timing): 1024 beats 2048 at EVERY probed shape —
-    256x2048^2 local 91.1 vs 82.2 GCUPS, 256x(2048x8192) 92.3 vs 77.8,
-    512x(304x2944) 70.9 vs 59.6, 152x(304x2944) 26.1 vs 3.2 (the 2048
-    width falls off the fused-carry cliff at small B x short m). 512 is
-    ~9% faster still at batch >= 512 on short-query shapes but loses
-    ~10% on the long-m headline shapes; 1024 is the best single
-    default. Non-powers of two lose badly (1536: 55.9 vs 92.3)."""
+    """Production chunk width: env ALIGNTOOLS_CHUNK_WIDTH, then on the GPU
+    the per-device calibrate table (``chunked_chunk``), then
+    DEFAULT_CHUNK (measured: PERF.md, "Bring-up findings")."""
     import os
 
     env = os.environ.get("ALIGNTOOLS_CHUNK_WIDTH")
     if env:
         return max(128, int(env))
-    try:
-        from aligntools_tpu.backend import on_tpu
+    from aligntools_tpu.backend import on_gpu
+
+    if on_gpu():
         from aligntools_tpu.engine.autotune import table
 
-        if on_tpu():
-            return int(table().get("chunked_chunk", DEFAULT_CHUNK))
-    except Exception:
-        pass
+        return int(table().get("chunked_chunk", DEFAULT_CHUNK))
     return DEFAULT_CHUNK
 
 
@@ -610,8 +593,8 @@ def _ptr_fields(mode, rpb):
     """Pointer-byte field layout for a chunk-ptr row step.
 
     rpb == 1: the engine/scan.py packed-byte layout (3-bit pM at bits
-    0-2, pL/pU/pJ flags at bits 3/4/5). rpb == 2: the nibble layout of
-    ops/pallas_ptr.py — pM is 2 bits because code 3 doubles as the
+    0-2, pL/pU/pJ flags at bits 3/4/5). rpb == 2: the nibble layout —
+    pM is 2 bits because code 3 doubles as the
     mode's fourth value (HOME for local, UNSET for global/fit-nojump),
     pL/pU at bits 2/3, no jump state; engine/device_tb decodes both."""
     if rpb == 2:
@@ -825,7 +808,7 @@ def _fit_chunk_ptr(use_jump, q, t_blk, allow_blk, gj, m_col, n_col, params,
     """Pointer-emitting fit chunk (M arg order L,M,U[,J]; J entry gating
     with the inverted enum-bool semantics; alignment.h:596-694).
     ``rpb`` == 2 (nibble) only without the jump state — pM spans 5
-    values with J and pJ needs its own bit (ops/pallas_ptr.py)."""
+    values with J and pJ needs its own bit)."""
     assert rpb == 1 or not use_jump
     pk = _ptr_fields("fit", rpb)
     match, mis, o, e, jp = params

@@ -1,10 +1,11 @@
 """Checkpoint-rescan traceback: full alignments in O(m·n/S) pointer memory.
 
 The whole-matrix engines (engine/scan.py + engine/device_tb.py) keep one
-packed pointer byte per DP cell — m x n bytes of HBM — which caps full
-alignments at roughly a 16 GB chip's worth of cells. This engine removes
-that cap the classic checkpoint-rescan way, restated for the TPU row-scan
-formulation:
+packed pointer byte per DP cell — m x n bytes of device memory — which
+caps full alignments at the pointer budget's worth of cells
+(batch.PTR_BUDGET_FRAC of the device's memory limit). This engine removes
+that cap the classic checkpoint-rescan way, restated for the batched
+row-scan formulation:
 
   forward   one scan over the m_pad query rows (the SAME mode machines as
             engine/scan.py — one source of truth for recurrences and

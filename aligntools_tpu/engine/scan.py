@@ -1,13 +1,13 @@
 """JAX row-scan device engine — all five alignment modes, single pair.
 
-TPU-first formulation of the reference's DP recurrences (reference:
+Data-parallel formulation of the reference's DP recurrences (reference:
 src/alignment.h — align_gla:417-473, align_local_affine:805-847,
 align_fit_affine_jump:596-694, align_overlap:926-964, edit_dist:291-315):
 instead of the reference's scalar ``for i / for j`` loops, each query row is
 filled as one wide vector step —
 
   * L (gap-in-target) and M (diagonal) depend only on the previous row →
-    pure elementwise VPU ops on shifted row vectors;
+    pure elementwise ops on shifted row vectors;
   * U (gap-in-query), fit's J (jump) and overlap's LEFT chain have an
     in-row left-to-right dependency → resolved exactly with a max-plus
     prefix scan: ``U[j] = max(M[j-1]+o, U[j-1]+e)`` becomes, after
@@ -85,13 +85,12 @@ def check_f32_exact(p, m: int, n: int, mode: str = "global") -> None:
 
 
 def _unroll() -> int:
-    """lax.scan unroll factor: 8 on TPU lifts the fill ~22% (50.7 -> 62
-    GCUPS at 256x2048x2048, measured amortized) by letting XLA overlap
-    independent work across consecutive rows; 1 on CPU keeps test compile
-    times sane."""
-    from aligntools_tpu.backend import on_tpu
+    """lax.scan unroll factor: 8 on the GPU, where each scan step pays a
+    fixed launch cost that unrolling amortizes (PERF.md, "Bring-up
+    findings"); 1 on the CPU keeps test compile times sane."""
+    from aligntools_tpu.backend import on_gpu
 
-    return 8 if on_tpu() else 1
+    return 8 if on_gpu() else 1
 
 # --- packed pointer-byte fields (see module docstring) ---
 PK_M_LOW, PK_M_MID, PK_M_UPP, PK_M_JUMP, PK_M_HOME, PK_M_UNSET = 0, 1, 2, 3, 4, 7
@@ -523,7 +522,7 @@ def _pad_to(x: np.ndarray, size: int, fill) -> np.ndarray:
 
 
 def pad_len(n: int, quantum: int = 128) -> int:
-    """Round up to the tile quantum (TPU lane width)."""
+    """Round up to the tile quantum (128 columns)."""
     return max(quantum, -(-n // quantum) * quantum)
 
 

@@ -1,8 +1,8 @@
 """Multi-host execution: initialization, result gather, failure handling.
 
 The reference is a single process with ``die() -> exit(-1)`` as its entire
-failure story (SURVEY.md §5; alignment.h:69-79). The TPU-native equivalent
-for pod-slice runs:
+failure story (SURVEY.md §5; alignment.h:69-79). The equivalent here, for
+multi-host runs:
 
   * ``init_multihost()`` — ``jax.distributed.initialize`` from the standard
     coordinator env (JAX_COORDINATOR_ADDRESS etc.), with a barrier so every

@@ -1,16 +1,16 @@
 """Multi-chip / multi-host execution: batch data-parallel sharding.
 
 The reference is strictly single-core (SURVEY.md §2.4); everything here is
-greenfield TPU-native design. The batch axis of each length bucket is
+new design. The batch axis of each length bucket is
 sharded over the mesh's ``data`` axis with ``shard_map`` — each device runs
 the same vmapped row-scan fill on its local batch shard (zero cross-device
 traffic during the fill; DP cells of different pairs are independent), and
-one ``psum`` aggregates batch statistics over ICI. Scores land fully
+one ``psum`` aggregates batch statistics across devices. Scores land fully
 replicated via ``all_gather`` so host 0 owns printing, mirroring the
 reference's stdout contract.
 
-Multi-host: under ``jax.distributed`` the same mesh spans hosts (DCN
-between slices, ICI within); ``batch_scores_sharded`` only touches
+Multi-host: under ``jax.distributed`` the same mesh spans hosts (the
+network between hosts, NVLink within); ``batch_scores_sharded`` only touches
 addressable shards, and the gather rides the mesh collectives.
 
 Sequence parallelism (one long pair sharded across chips) lives in
@@ -42,16 +42,15 @@ def _sharded_fill(mode, n_pad, mesh, qs, ts, ns, ps, decay=False):
     """Score-only fill with the batch axis sharded over mesh('data').
 
     Returns (scores [B] replicated, n_finite [] psum'd cell-count stat) —
-    the psum is the ICI collective that multi-host result aggregation
-    rides on.
+    the psum is the collective that multi-host result aggregation rides
+    on.
     """
 
     def local(qs, ts, ns, ps):
         # Each device fills its local batch shard on the column-chunked
-        # batched engine (engine/chunked.py) — the fastest score fill in
-        # the large-batch regime a pod shard actually runs (65-79 GCUPS
-        # on v5e; engine/select.use_chunked), and bit-identical to the
-        # vmapped machines everywhere (tests/test_chunked.py).
+        # batched engine (engine/chunked.py) — the large-batch route of
+        # engine/select.use_chunked, bit-identical to the vmapped
+        # machines everywhere (tests/test_chunked.py).
         from aligntools_tpu.engine import chunked as ck
 
         vals = ck.chunked_scores(mode, qs, ts, ns, ck.default_chunk(),

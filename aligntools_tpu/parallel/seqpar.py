@@ -1,7 +1,7 @@
 """Sequence parallelism: one pair's TARGET axis sharded across the mesh.
 
 The reference allocates O(m*n) doubles for fit-mode targets up to 114 KB
-(SURVEY.md §5 "long-context"); this module is the TPU-native scaling story
+(SURVEY.md §5 "long-context"); this module is the scaling story
 for that axis: the target (and every DP row) is split into contiguous
 column blocks, one per device on the mesh's ``seq`` axis, and the row-scan
 engine runs under ``shard_map`` with two tiny collectives per row:
@@ -17,9 +17,9 @@ engine runs under ``shard_map`` with two tiny collectives per row:
     engine/scan.py, so results are bit-identical to the single-device
     engines.
 
-Per row that is O(D) scalars of ICI traffic against O(n/D) VPU work —
-latency-bound but tiny; the win is that each device's working rows shrink
-by D, so targets far beyond one core's VMEM (or one chip's appetite)
+Per row that is O(D) scalars of interconnect traffic against O(n/D)
+vector work — latency-bound but tiny; the win is that each device's
+working rows shrink by D, so targets far beyond one device's appetite
 stream at full vector width.
 
 Full alignments (round 2): ``seqpar_align`` runs the same sharded fill

@@ -43,6 +43,15 @@ def read_pair_records(path: str):
     return [(records[i], records[i + 1]) for i in range(0, len(records), 2)]
 
 
+def chunk_bounds(n: int, chunk_size: int) -> list[tuple[int, int]]:
+    """[lo, hi) of ceil(n / chunk_size) chunks of near-equal size, none
+    above ``chunk_size``: equal chunks hold similar bucket occupancies,
+    so padding every chunk to the largest one costs few rows."""
+    k = -(-n // chunk_size)
+    cuts = [n * i // k for i in range(k + 1)] if k else [0]
+    return list(zip(cuts[:-1], cuts[1:]))
+
+
 def run_pipeline(
     mode: str,
     path: str,
@@ -71,10 +80,10 @@ def run_pipeline(
     """
     from aligntools_tpu.batch import align_batch, batch_scores
 
-    if not sharded:
-        from aligntools_tpu.backend import enable_compile_cache
+    from aligntools_tpu.backend import enable_compile_cache, require_device
 
-        enable_compile_cache()
+    require_device()
+    enable_compile_cache()
     if out is not None and out_path is not None:
         raise ValueError("pass out or out_path, not both")
     own_out = out_path is not None
@@ -111,32 +120,29 @@ def run_pipeline(
             out.seek(0)
             out.truncate(0)
 
-    chunks = [
-        rec_pairs[i : i + chunk_size]
-        for i in range(0, len(rec_pairs), chunk_size)
-    ]
+    bounds = chunk_bounds(len(rec_pairs), chunk_size)
+    chunks = [rec_pairs[lo:hi] for lo, hi in bounds]
 
     # ONE global bucket partition for the whole run: per-chunk greedy
     # partitions drift with the data (measured: 779 distinct compiled
     # (B, m_pad, n_pad) fill keys on a 100k-pair run at chunk 4096), so
-    # every chunk is bucketed with the same global shape keys and
-    # batch.py's batch-rung padding makes the per-bucket occupancies
-    # collide across chunks too.
-    global_keys = None
+    # every chunk is bucketed with the same global shape keys, and each
+    # shape runs at its largest per-chunk occupancy in every chunk, so
+    # all chunks share one compiled batch rung per shape.
+    global_keys = batch_rows = None
     if band is None and not sharded:
-        from aligntools_tpu.batch import _bucket_keys, _split_min_cells
+        from collections import Counter
+
+        from aligntools_tpu.batch import _bucket_keys
 
         with stopwatch(counters, "encode_seconds"):
-            # small-workload wall-time stop only: at multi-chunk scale
-            # the prefetch thread and async dispatch amortize per-bucket
-            # overhead, and scaling the threshold up was MEASURED to
-            # regress the 100k run (padding transfers cost more than the
-            # saved dispatches) — the flat threshold self-limits there
-            # because large workloads' splits save far more cells
             global_keys = _bucket_keys(
-                [(a.seq, b.seq) for a, b in rec_pairs], 64, 128,
-                min_split_cells=_split_min_cells(),
+                [(a.seq, b.seq) for a, b in rec_pairs], 64, 128
             )
+            batch_rows = {}
+            for lo, hi in bounds:
+                for key, c in Counter(global_keys[lo:hi]).items():
+                    batch_rows[key] = max(batch_rows.get(key, 0), c)
 
     def compute(ci, chunk):
         """Align one chunk (runs on the prefetch worker: the NEXT chunk's
@@ -144,7 +150,7 @@ def run_pipeline(
         writing of the previous chunk's results)."""
         keys = None
         if global_keys is not None:
-            lo = ci * chunk_size
+            lo = bounds[ci][0]
             keys = global_keys[lo : lo + len(chunk)]
         pairs = [(a.seq, b.seq) for a, b in chunk]
         sites_list = None
@@ -153,6 +159,9 @@ def run_pipeline(
                 parse_junctions(b.comment) if b.comment else []
                 for _, b in chunk
             ]
+        if sharded or band is not None:
+            route = "sharded" if sharded else "banded"
+            counters.routes[route] = counters.routes.get(route, 0) + 1
         if sharded:
             from aligntools_tpu.parallel.mesh import batch_scores_sharded
 
@@ -170,11 +179,12 @@ def run_pipeline(
         if mode == "edit" or scores_only:
             return pairs, list(
                 batch_scores(mode, pairs, params, sites_list,
-                             engine=engine, counters=counters, keys=keys)
+                             engine=engine, counters=counters, keys=keys,
+                             batch_rows=batch_rows)
             )
         return pairs, align_batch(
             mode, pairs, params, sites_list, traceback=True,
-            counters=counters, keys=keys,
+            counters=counters, keys=keys, batch_rows=batch_rows,
         )
 
     pending = [

@@ -1,7 +1,7 @@
 """NumPy "spec engine" — the exact behavioral oracle for all five modes.
 
 This module is the readable source of truth for the reference semantics; the
-JAX/Pallas device engines are differentially tested against it, and it is
+JAX device engines are differentially tested against it, and it is
 itself differentially tested against the compiled reference binary.
 
 It reproduces, bit-for-bit:

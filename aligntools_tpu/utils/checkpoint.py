@@ -1,7 +1,7 @@
 """Checkpoint / resume for large batch runs.
 
 The reference is stateless (runs are one pair, sub-second; SURVEY.md §5);
-large TPU batch runs over millions of pairs are not, so the pipeline
+large batch runs over millions of pairs are not, so the pipeline
 processes pairs in chunks and records completion in a JSON manifest next
 to the output file. A re-run with the same manifest skips completed chunks
 and appends only the remainder.

@@ -2,7 +2,7 @@
 
 The reference prints two gapped row strings (alignment.h:509-510); for
 pipeline/serving consumers a compact CIGAR is the standard exchange form
-(BASELINE.json's north star names CIGAR gather explicitly). Ops follow
+(the original north star named CIGAR gather explicitly). Ops follow
 SAM conventions over the row pair:
 
   M  both rows have a residue (match or mismatch — '=' /'X' split by

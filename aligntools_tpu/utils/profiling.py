@@ -1,9 +1,9 @@
 """Profiling & observability: GCUPS counters and jax.profiler hooks.
 
 The reference has no tracing/profiling at all (SURVEY.md §5 — its only nod
-to debuggability is ``-g -O2``); this module provides the TPU-native
-equivalents: wall-clock stage timers, cell-update throughput (GCUPS)
-accounting per bucket, and an optional ``jax.profiler`` trace context for
+to debuggability is ``-g -O2``); this module provides wall-clock stage
+timers, cell-update throughput (GCUPS) accounting per bucket, the engine
+each bucket was routed to, and an optional ``jax.profiler`` trace context for
 XProf/TensorBoard dumps.
 """
 
@@ -31,6 +31,8 @@ class Counters:
     fill_seconds: float = 0.0  # device fills incl. dispatch + sync
     walk_seconds: float = 0.0  # traceback walks + row assembly
     format_seconds: float = 0.0  # TSV formatting + write
+    # buckets (or budget slices) filled per engine route
+    routes: dict = dataclasses.field(default_factory=dict)
 
     @property
     def gcups(self) -> float:
@@ -53,6 +55,9 @@ class Counters:
             extras.append(f"pad-efficiency {self.pad_efficiency:.1%}")
         if self.traceback_seconds:
             extras.append(f"traceback {self.traceback_seconds:.3f}s")
+        if self.routes:
+            extras.append("routes " + " ".join(
+                f"{k}:{v}" for k, v in sorted(self.routes.items())))
         for name, val in (("encode", self.encode_seconds),
                           ("fill", self.fill_seconds),
                           ("walk", self.walk_seconds),

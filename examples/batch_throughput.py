@@ -1,6 +1,6 @@
 """Throughput: thousands of pairs, bucketed + vmapped on the device.
 
-Run on TPU (default backend) or CPU (JAX_PLATFORMS=cpu)."""
+Run on the GPU (default backend) or CPU (JAX_PLATFORMS=cpu)."""
 import numpy as np
 
 from aligntools_tpu import AlignParams, batch_scores, align_batch

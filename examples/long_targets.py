@@ -1,21 +1,20 @@
-"""Long-target scaling: the three engines past the flat-kernel window.
+"""Long-target scaling: full rows at lengths past a full pointer matrix.
 
 The reference mallocs O(m*n) doubles per alignment (~7 GB for its own
-114k-column stress pair, /root/reference/test/tmp.fa). This framework
+114k-column stress pair, test/tmp.fa in its checkout). This framework
 scales the same workloads three ways:
 
-  * column-blocked streaming kernels (ops/pallas_blocked.py) — the
-    target streams through VMEM in 8k blocks, full rows on-chip;
+  * the column-chunked engine (engine/chunked.py) — the target in column
+    chunks with carried row edges, packed pointers walked on device;
   * checkpoint-rescan traceback (engine/rescan.py) — O(m * stride)
-    memory, full rows at ANY length (validated at 1M columns on
-    hardware, tools/tpu_check.py);
+    memory, full rows at ANY length;
   * sequence parallelism (parallel/seqpar.py) — the TARGET axis sharded
     over a device mesh, per-row ppermute boundary exchange, pointer
     slabs walked on device; rows byte-identical to single-device.
 
 Run on CPU with a virtual mesh:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
-      /opt/venv/bin/python examples/long_targets.py
+      python examples/long_targets.py
 """
 
 import numpy as np

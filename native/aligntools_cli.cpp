@@ -415,7 +415,7 @@ int usage() {
   std::fprintf(
       stderr,
       "\n"
-      "Program: aligntools (TPU-native pairwise sequence alignment)\n"
+      "Program: aligntools (batched pairwise sequence alignment)\n"
       "Version: %s\n\n"
       "Usage:   aligntools <command> [options] <target.fa>\n\n"
       "Command: global     global (Needleman-Wunsch) alignment, affine gap\n"

@@ -1,10 +1,10 @@
-// Native host-side runtime for aligntools-tpu: FASTA/FASTQ ingest and
+// Native host-side runtime for aligntools: FASTA/FASTQ ingest and
 // packed-pointer traceback walks.
 //
 // The reference implements these in C (vendored klib: src/kseq.h streaming
 // parser over gzread; src/alignment.h:372-412/558-592/766-800/896-922
 // traceback walks over four int pointer matrices). This is a new C++
-// implementation designed for the TPU engine's data layout: the parser
+// implementation designed for the device engines' data layout: the parser
 // fills one contiguous arena (zero-copy handoff to numpy via ctypes), and
 // the traceback walks the engine's packed 1-byte-per-cell pointer tensor
 // (bit layout: aligntools_tpu/engine/scan.py module docstring).

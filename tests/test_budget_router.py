@@ -99,7 +99,8 @@ def test_packed_chunked_survives_unpacked_oom_shape(monkeypatch, mode):
     # the packed estimate must fit the budget in ONE fill (no slicing),
     # while the unpacked tensor would have blown it
     bucket = ab._bucketize(pairs, None)[(m_pad, n_pad)]
-    est = ab._rows_ptr_bytes_pp(mode, bucket, False, "auto")
+    est = ab._rows_ptr_bytes_pp(mode, bucket, False, "auto",
+                                len(bucket.idx))
     assert est * B <= budget * ab.PTR_BUDGET_FRAC
     assert unpacked > budget * ab.PTR_BUDGET_FRAC
 

@@ -146,7 +146,7 @@ def test_pick_chunk():
 def test_batch_routes_chunked(monkeypatch):
     """align_batch's chunked branch (batch.py _chunked_bucket_scores)
     produces the same results as the default CPU routing. use_chunked is
-    TPU-gated, so force it to exercise the plumbing here."""
+    GPU-gated, so force it to exercise the plumbing here."""
     from aligntools_tpu import batch as ab
     from aligntools_tpu.engine import select as sel
 

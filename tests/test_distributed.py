@@ -1,8 +1,7 @@
 """Multi-host wrappers (parallel/distributed.py) under a REAL 2-process
 jax.distributed job on the CPU backend.
 
-Round-1 exercised these only as single-process no-ops (VERDICT weak #5);
-here two subprocesses form an actual coordinator/client pair over
+Earlier these ran only as single-process no-ops; here two subprocesses form an actual coordinator/client pair over
 localhost DCN, so init_multihost / barrier / gather_to_host0 run their
 multihost branches: process_allgather moves real data and the barrier
 synchronizes both sides. abort_all's exit path stays covered by the

@@ -109,7 +109,7 @@ def test_sanitizer_job(tmp_path):
     """The ASan+UBSan corpus run (native/Makefile `sanitize`): parser fuzz
     + walk corpus under -fno-sanitize-recover. Caught a real OOB read in
     round 2 (commit fcd2545); running it in every CI pass keeps the
-    untrusted-gz-input parser honest (VERDICT r2 #5)."""
+    untrusted-gz-input parser honest."""
     import shutil
     import subprocess
 

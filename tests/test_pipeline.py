@@ -51,6 +51,57 @@ def test_pipeline_global_rows(tmp_path):
         assert r1 == want.row1.decode() and r2 == want.row2.decode()
 
 
+@pytest.mark.parametrize("n,chunk_size", [
+    (0, 4), (1, 4), (7, 3), (8, 2), (20_000, 16_384), (100_000, 16_384),
+])
+def test_chunk_bounds_near_equal(n, chunk_size):
+    from aligntools_tpu.pipeline import chunk_bounds
+
+    b = chunk_bounds(n, chunk_size)
+    assert len(b) == -(-n // chunk_size)
+    if b:
+        assert [lo for lo, _ in b] == [0] + [hi for _, hi in b[:-1]]
+        assert b[-1][1] == n
+        sizes = [hi - lo for lo, hi in b]
+        assert max(sizes) <= chunk_size and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_pipeline_chunks_share_batch_rungs(tmp_path, monkeypatch, rows):
+    """Every chunk fills each bucket shape at one batch rung, however
+    many of its pairs the chunk holds, so a second chunk compiles
+    nothing new; the outputs stay those of the spec."""
+    from aligntools_tpu import batch as bt
+
+    path, pairs, _ = _make_fasta(tmp_path, 60, seed=31)
+    seen = []
+    pad_rows = bt._pad_rows
+
+    def spy(b):
+        out = pad_rows(b)
+        seen.append((b.m_pad, b.n_pad, len(out[0])))
+        return out
+
+    monkeypatch.setattr(bt, "_pad_rows", spy)
+    buf = io.StringIO()
+    p = AlignParams()
+    run_pipeline("global", path, p, out=buf, chunk_size=25,
+                 scores_only=not rows)
+    rungs = {}
+    for m_pad, n_pad, bp in seen:
+        rungs.setdefault((m_pad, n_pad), set()).add(bp)
+    assert len(seen) > len(rungs)  # shapes recur across the 3 chunks
+    assert all(len(v) == 1 for v in rungs.values()), rungs
+    lines = buf.getvalue().strip().splitlines()
+    assert len(lines) == 60
+    for k, ln in enumerate(lines):
+        f = ln.split("\t")
+        want = spec.spec_global(*pairs[k], p)
+        assert float(f[2]) == want.score
+        if rows:
+            assert (f[3], f[4]) == (want.row1.decode(), want.row2.decode())
+
+
 def test_pipeline_fit_sites(tmp_path):
     path, pairs, site_lists = _make_fasta(tmp_path, 5, seed=3, sites=True)
     buf = io.StringIO()

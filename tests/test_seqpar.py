@@ -60,7 +60,7 @@ def test_dp_sp_composition():
 def test_seqpar_full_alignments(mode):
     """Sequence-parallel FULL alignments: sharded fill + per-device pointer
     slabs + device walk == the single-device full-alignment path, byte for
-    byte (rows, not just scores) — VERDICT r1 item 2."""
+    byte (rows, not just scores)."""
     from aligntools_tpu.batch import align_batch
     from aligntools_tpu.parallel.seqpar import seqpar_align
 

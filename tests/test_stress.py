@@ -9,7 +9,9 @@ import pytest
 
 from aligntools_tpu.cli import main
 
-TMP_FA = "/root/reference/test/tmp.fa"
+from conftest import REF_TEST
+
+TMP_FA = os.path.join(REF_TEST, "tmp.fa")
 DEBUG_LINE = "asDAsdaSDAsdasDAsdaSD"
 
 

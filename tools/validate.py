@@ -4,15 +4,16 @@ Runs thousands of randomized pairs — uniform DNA, tie-heavy binary
 alphabets, homopolymer runs, protein alphabet, degenerate parameter sets
 (match == mismatch, o == e) — through:
 
-  reference binary  <->  spec oracle  <->  scan engine  <->  Pallas kernels
+  reference binary  <->  spec oracle  <->  scan engine  <->  batch path
 
 and asserts score equality everywhere plus alignment-row equality wherever
 the reference's own output is self-consistent (its strrev heap overflow
 can corrupt printed rows; see QUIRKS.md). Writes a summary to stdout.
 
-Usage: /opt/venv/bin/python tools/validate.py [n_per_case] [--section S]
+Usage: ALIGNTOOLS_REFERENCE=DIR python tools/validate.py [n_per_case]
+       [--section S]   (DIR: a checkout of the reference C sources)
 
-Sections: main (spec/scan/Pallas vs reference), banded-full, rescan,
+Sections: main (spec/scan/batch vs reference), banded-full, rescan,
 banded-auto, seqpar. With no --section, every section runs in its own
 subprocess — XLA:CPU can segfault after ~170 distinct executables in one
 process (see pyproject addopts), and the campaign compiles many.
@@ -25,18 +26,12 @@ import subprocess
 import sys
 import tempfile
 
-try:
-    import numpy as np
-except ImportError:
-    venv = "/opt/venv/bin/python"
-    if os.path.exists(venv) and not sys.executable.startswith("/opt/venv/"):
-        os.execv(venv, [venv, os.path.abspath(__file__), *sys.argv[1:]])
-    raise
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-REF_DIR = "/root/reference"
+REF_DIR = os.environ.get("ALIGNTOOLS_REFERENCE", "")
 
 
 def build_reference(tmp):
@@ -157,7 +152,7 @@ def section_main(n_per, tmp, binary):
 
     kinds = KINDS
     for mode in ("global", "local", "edit", "fit", "overlap"):
-        pallas_batch = []
+        batch_cases = []
         for k in range(n_per):
             kind = kinds[k % len(kinds)]
             pd = PARAM_SETS[k % len(PARAM_SETS)]
@@ -196,7 +191,7 @@ def section_main(n_per, tmp, binary):
                 assert lines[-1] == f"edit_distance={want}", (mode, k, q, t)
                 got = scan_align("edit", q, t, p)
                 assert got == want, (mode, k)
-                pallas_batch.append((q, t, p, want, None))
+                batch_cases.append((q, t, p, want, None))
                 continue
             if mode == "fit":
                 w = spec.spec_fit(q, t, p, sites)
@@ -220,15 +215,15 @@ def section_main(n_per, tmp, binary):
             assert (g.score, g.row1, g.row2) == (w.score, w.row1, w.row2), (
                 mode, k,
             )
-            pallas_batch.append((q, t, p, w.score, sites))
-        # Pallas kernels (interpret) on a subset, grouped by param set —
+            batch_cases.append((q, t, p, w.score, sites))
+        # the batched path on a subset, grouped by param set —
         # and, for fit, by jump-state usage (use_jump applies per batch:
         # a sites=None pair means NO jump state, not an all-permitted one)
         for pi, pd in enumerate(PARAM_SETS):
             p = AlignParams(**pd)
             for with_sites in (False, True):
                 sub = [
-                    x for x in pallas_batch[:60]
+                    x for x in batch_cases[:60]
                     if x[2] == p and (mode != "fit"
                                       or (x[4] is not None) == with_sites)
                 ]
@@ -236,8 +231,7 @@ def section_main(n_per, tmp, binary):
                     continue
                 prs = [(q, t) for q, t, *_ in sub]
                 sl = [x[4] for x in sub] if with_sites else None
-                got = batch_scores(mode, prs, p, sites_list=sl,
-                                   engine="pallas")
+                got = batch_scores(mode, prs, p, sites_list=sl)
                 want = np.asarray([x[3] for x in sub], dtype=np.float64)
                 assert np.array_equal(got.astype(np.float64), want), (
                     mode, pi, with_sites,
@@ -249,7 +243,7 @@ def section_main(n_per, tmp, binary):
         f"overflow), {stats['rows_insane']} reference row outputs "
         f"corrupt/skipped; every score matched and every self-consistent "
         f"reference alignment matched byte-for-byte across spec, scan "
-        f"engine, and Pallas kernels.", flush=True,
+        f"engine, and the batched path.", flush=True,
     )
     return stats
 
@@ -545,7 +539,7 @@ def main():
         print(f"VALIDATION FAILED: sections {failed}")
         sys.exit(1)
     print(
-        "VALIDATION PASSED: spec/scan/Pallas (vs reference binary), "
+        "VALIDATION PASSED: spec/scan/batch (vs reference binary), "
         "banded-full rows, rescan rows, certificate-driven banded-auto "
         "scores, and seqpar full rows all byte/score-identical."
     )
